@@ -1,11 +1,9 @@
 """Scaling measurement: refined patches/s at 1..N local devices.
 
-BASELINE.json asks for patches/s measured at 1 chip / 1 host / N>=2 hosts
-with >= 80% scaling efficiency. This harness measures every attached device
-count by re-running the data-parallel refine over sub-meshes (this
-container exposes ONE real TPU chip, so here it reports a single point;
-on a pod host it prints the whole curve). Prints one JSON line per device
-count.
+Refined patches/s and scaling efficiency at every attached device count,
+by re-running the data-parallel refine over sub-meshes (one GPU gives a
+single point; a four-GPU host prints the whole curve). Prints one JSON
+line per device count.
 
 Usage:  python bench_scaling.py            (real devices)
         JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -32,11 +30,9 @@ def main():
     from pais_mvs_tpu.ops import lifecycle as lc
 
     from pais_mvs_tpu.cache import enable_persistent_cache
-    enable_persistent_cache(os.path.join(os.path.dirname(__file__),
-                                         ".jax_cache"))
+    enable_persistent_cache()
 
-    def sync(x):
-        return float(jnp.sum(x))
+    sync = jax.block_until_ready
 
     devices = jax.devices()
     per_dev = int(os.environ.get("BENCH_PER_DEVICE", "512"))
@@ -103,8 +99,7 @@ def _view_sharded_curve(per_dev: int):
     from pais_mvs_tpu.parallel import mesh as mesh_mod
     from pais_mvs_tpu.parallel.sharded import sharded_pso_refine
 
-    def sync(x):
-        return float(jnp.sum(x))
+    sync = jax.block_until_ready
 
     devices = jax.devices()
     C = 4
@@ -287,7 +282,7 @@ def _mp_worker(pid: int, nproc: int, per_proc: int, port: int,
     n = len(devices)
     B = per_dev * n
     cfg = MvsConfig(particle_num=15, max_iteration=30, dist_weighting=5.0,
-                    max_lod=6, batch_size=B, fitness_backend="jnp")
+                    max_lod=6, batch_size=B)
     sc = make_scene(num_cams=5, width=640, height=480, num_seeds=B + 64,
                     seed=0)
     scene = build_scene(sc.params, sc.images, cfg)

@@ -25,20 +25,19 @@ from pais_mvs_tpu.config import MvsConfig, load_config_txt
 from pais_mvs_tpu.engine.reconstructor import Reconstructor
 from pais_mvs_tpu.io import nvm as nvm_io
 from pais_mvs_tpu.io import mvsbin
+from pais_mvs_tpu.io.images import read_image
 from pais_mvs_tpu.io.pointcloud import write_ply
 
 CONFIG_FILE_NAME = "config.txt"
 
 
 def _load_images(params, base_dir):
-    from PIL import Image
     images = []
     for p in params:
         path = p.file_name
         if not os.path.isabs(path):
             path = os.path.join(base_dir, path)
-        img = np.asarray(Image.open(path).convert("RGB"))
-        images.append(img)
+        images.append(read_image(path))
     return images
 
 
@@ -383,7 +382,7 @@ def run_animate(path: str, out_dir: str = ".") -> None:
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="pais-mvs-tpu",
-        description="TPU-native patch-based multi-view stereo")
+        description="Patch-based multi-view stereo in JAX")
     ap.add_argument("-r", metavar="FILE", help="reconstruct (.nvm/.nvm2/.mvs)")
     ap.add_argument("-f", metavar="FILE", help="post-filter (.mvs)")
     ap.add_argument("-v", metavar="FILE", help="snapshot view (.mvs)")
@@ -415,21 +414,10 @@ def main(argv=None):
                          "patch and report before/after (viewer Shift+S)")
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="capture a jax.profiler trace of the run into DIR")
-    ap.add_argument("--coordinator", default=None,
-                    help="multi-host: coordinator address host:port")
-    ap.add_argument("--num-processes", type=int, default=None,
-                    help="multi-host: total process count")
-    ap.add_argument("--process-id", type=int, default=None,
-                    help="multi-host: this process's id")
     args = ap.parse_args(argv)
 
-    if args.coordinator is not None:
-        from pais_mvs_tpu.parallel.distributed import init_distributed
-        init_distributed(args.coordinator, args.num_processes,
-                         args.process_id)
-
     # persistent compilation cache: the refine programs are large and
-    # recompile identically across runs (machine-keyed — see cache.py)
+    # recompile identically across runs (see cache.py)
     from pais_mvs_tpu.cache import enable_persistent_cache
     enable_persistent_cache()
 

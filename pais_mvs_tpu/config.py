@@ -78,89 +78,27 @@ class MvsConfig:
     seed_refine_rounds: int = 3
     # Deterministic RNG seed (the reference uses srand(time) — irreproducible).
     rng_seed: int = 0
-    # Fitness kernel backend: "auto" picks the Pallas TPU kernel on TPU and
-    # the jnp reference elsewhere; "jnp"/"pallas" force one.
-    fitness_backend: str = "auto"
     # Shard refine batches over all local devices (patch-axis data
     # parallelism under shard_map) when more than one is attached and
     # batch_size divides the device count. "auto" enables it on real
     # accelerator backends only (virtual CPU meshes pay shard_map overhead
     # without parallel hardware); "on"/"off" force it.
     data_parallel: str = "auto"
-    # Force full-f32 MXU multiplies in the Pallas kernel (~3x slower; the
-    # default bf16 passes add ~0.02 intensity units of fitness noise).
-    pallas_precise: bool = False
     # undistort input images + measurements at load so the engine runs pure
     # pinhole (the reference parses NVM radial distortion but never enables
     # it at any project() call site; camera.cpp:148-155)
     apply_distortion: bool = False
-    # narrow (64-wide) kernel box slices: ~25% faster refinement, but
-    # near-grazing hypotheses (warp u-span > ~60 px) falsely score BIG —
-    # fine on narrow-baseline rigs, measurably hurts wide-baseline ones
-    # (BASELINE.md round 2). Default keeps full coverage.
-    pallas_fast_slice: bool = False
-    # dual-width kernel dispatch: per PSO iteration, patches whose every
-    # particle window provably fits the 64-wide slice run a narrow launch
-    # (saving its VPU weight-build cost); the rest run the full-coverage
-    # 128-wide launch. Semantically equivalent to always-wide (the routing
-    # test mirrors the kernel's slice math conservatively; narrow launches
-    # quantize a different weight matrix to bf16, so agreement is to bf16
-    # tolerance). Measured SLOWER than always-wide on the headline bench
-    # (~425 vs ~440 p/s: two grid sweeps + the per-iteration routing mask
-    # outweigh the narrow launch's VPU saving), so OFF by default; kept as
-    # a knob for narrow-baseline workloads where most patches stay narrow
-    # (tools/probe_bucket.py measures the tradeoff in-situ).
-    pallas_span_bucket: bool = False
-    # bf16 VPU weight builds in the fused kernel, residual formulation:
-    # round(coord) is exact in bf16 (integers <= 256), only the fractional
-    # residual carries quantization, so the built weight equals
-    # bf16(f32 weight) to 1 ulp — unlike a raw coordinate cast, which
-    # quantizes coord itself by +-0.2 px at coord ~ 100 (the error class
-    # the realistic-imagery gate catches; BASELINE.md round 2).
-    # 0 = f32 builds (default); 1 = build the MXU-side hat matrix in bf16
-    # (it was being cast to bf16 for the matmul anyway — pure saving);
-    # 2 = also build the VPU-side matrix and run the row reduce in bf16
-    # (the MXU accumulates in f32 — Mosaic requires a 32-bit acc — and
-    # the result is downcast to bf16 for the reduce: interpolated
-    # intensities round to +-0.5 units, roughly doubling the default
-    # path's bf16 fitness noise — still ~0.1 on O(1-10) fitness values,
-    # far below the photoconsistency contrast PSO ranks on;
-    # parity-tested).
-    # TPU v5e measured (round 3): level 1 = 276 p/s vs level 0 = 408 p/s
-    # on the headline bench — the bf16 builds force extra relayouts that
-    # cost more than the element-rate saving, so 0 stays the default.
-    # Ignored under pallas_precise. Speed effect depends on the chip's
-    # bf16 VPU element rate (tools/microbench_kernel.py variants V1/V2/W).
-    pallas_bf16_vpu: int = 0
-    # Hoist the fused kernel's box roll (the dynamic-lane-alignment
-    # pltpu.roll before the block slice) from once per particle block to
-    # once per (patch, camera) cell: all blocks share one 128-wide slice
-    # centered on the whole-swarm mean warped center instead of per-block
-    # means (microbench variant R, tools/microbench_kernel.py). Round-4
-    # A/B on-chip measured it e2e NEUTRAL (head_vs_control 0.999-1.007
-    # across three runs; the rolls hide under the MXU pipeline), and the
-    # shared slice's coverage is strictly narrower: the bench workload's
-    # p100 |u - cell-center| is 67.5 px vs the shared slice's +-64
-    # (tools/measure_footprint.py), so rare wide hypotheses the per-block
-    # slice covers can be BIG-fated under the hoist. Equal speed + strictly
-    # wider coverage -> per-block (False) is the default; bench.py times
-    # the hoisted variant as its pinned in-run calibration control arm.
-    pallas_roll_hoist: bool = False
     # GLN-PSO iteration-loop chunk size for whole-batch early exit: > 0
     # runs the PSO scan in chunks of this many iterations inside a
     # while_loop that stops once EVERY swarm has frozen (the batch analog
     # of the reference's per-swarm early stop, psosolver.cpp:286-306).
     # Bit-identical to the fixed-length scan (frozen swarms never move;
     # ops/pso.py). Saves whole fitness dispatches only when the entire
-    # batch converges early — per-swarm freezing is already exploited by
-    # the kernel's act flags. 0 = fixed-length scan (default; flip after
-    # the on-chip A/B, tools/profile_refine.py measures the iteration
-    # distribution that decides this).
+    # batch converges early. 0 = fixed-length scan (default).
     pso_exit_chunk: int = 0
     # Pipelined wavefront expansion: overlap the HOST candidate generation
-    # of round n+1 with the DEVICE refine of round n (the largest
-    # non-kernel expansion line item: 30 s host vs 482 s device at 4K,
-    # strictly alternating — BASELINE.md round 4). Candidates of round
+    # of round n+1 with the DEVICE refine of round n (otherwise the two
+    # strictly alternate). Candidates of round
     # n+1 are generated against the pre-insert(n) grid; the insert-time
     # live-grid re-check restores density/skipNeighborCell verdicts
     # exactly, and round-n inserts join the frontier one round later —

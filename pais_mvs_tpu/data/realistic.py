@@ -3,7 +3,7 @@ geometry, per-view photometric jitter, and the reference's actual pawn
 camera rig.
 
 The synthetic value-noise scenes (data/synthetic.py) validate numerics;
-everything here exists to answer the gaps they leave (VERDICT round 1):
+everything here exists to answer the gaps they leave:
 
   * texture is a REAL photograph (matplotlib's bundled public-domain
     ``grace_hopper.jpg``) with natural intensity statistics, not
@@ -14,7 +14,7 @@ everything here exists to answer the gaps they leave (VERDICT round 1):
   * each camera applies a gain/bias photometric jitter (brightness
     constancy only holds approximately, as between real exposures);
   * the camera rig is the reference's pawn benchmark: the five NVM
-    camera rows from /root/reference/README.md:68-72 verbatim (real
+    camera rows from the reference's README.md:68-72 verbatim (real
     focals, quaternions, centers; radial distortion ~-0.2 is carried
     through parsing — projection applies it only when the config asks).
 
@@ -66,8 +66,14 @@ def _quat_to_R(q):
 
 def load_photo() -> np.ndarray:
     """The bundled real photograph (uint8 [H, W, 3])."""
-    import matplotlib
-    from PIL import Image
+    try:
+        import matplotlib
+        from PIL import Image
+    except ImportError as e:
+        raise RuntimeError(
+            "the realistic scene's texture is matplotlib's sample photograph "
+            f"and needs matplotlib and Pillow ({e.name} is not installed)"
+        ) from None
     path = os.path.join(os.path.dirname(matplotlib.__file__), "mpl-data",
                         "sample_data", "grace_hopper.jpg")
     return np.asarray(Image.open(path).convert("RGB"))
@@ -204,7 +210,7 @@ def make_realistic_scene(num_seeds: int = 200, seed: int = 0,
     pinhole model after undistortion (cfg.apply_distortion).
     scale: integer super-resolution factor — renders the SAME rig and
     surface at scale*(640x480) with focals scaled to match (the 2K-class
-    arm of the distributed parity evidence, VERDICT r4 next-step #8).
+    arm of the distributed parity evidence).
     """
     W, H = WIDTH * scale, HEIGHT * scale
     rng = np.random.default_rng(seed)

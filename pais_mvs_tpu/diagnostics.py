@@ -96,7 +96,11 @@ def save_patch_diagnostics(scene: Scene, cfg: MvsConfig, center, normal_sph,
     """Write '<out_dir>/patch<id>_views.png' (warped window per view,
     reference view first) and '..._error.png' (SAD heat-map). Returns the
     views path."""
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError:
+        raise RuntimeError("--patch-id diagnostics write PNG files and need "
+                           "Pillow, which is not installed") from None
 
     windows, valid = warped_windows(scene, cfg, center, normal_sph,
                                     ref_cam, cam_mask, lod)

@@ -1,11 +1,11 @@
 """Seed-patch generation from images (reference C9: TMVS/mvs/featuremanager).
 
-TPU-native feature pipeline replacing the reference's OpenCV SIFT +
+Batched JAX feature pipeline replacing the reference's OpenCV SIFT +
 brute-force matcher (TMVS/mvs/featuremanager.cpp:5-116):
 
 * ``detect``    — DoG scale-space keypoints as batched convolutions/pooling.
 * ``describe``  — gradient-histogram descriptors on fixed sample grids.
-* ``matching``  — all-pairs descriptor matching as one MXU matmul per view
+* ``matching``  — all-pairs descriptor matching as one matmul per view
                   pair, cross-checked and epipolar-gated with analytic
                   fundamental matrices.
 * ``seeding``   — n-view track union (host) + ray triangulation into seed

@@ -42,7 +42,7 @@ def _blur(img: jnp.ndarray, sigma: float) -> jnp.ndarray:
     k = jnp.asarray(_gauss_kernel1d(sigma))
     r = (k.shape[0] - 1) // 2
     x = jnp.pad(img, ((0, 0), (r, r)), mode="edge")
-    # conv along W then H via conv_general_dilated (maps onto the VPU/MXU)
+    # conv along W then H via conv_general_dilated
     x = jax.lax.conv_general_dilated(
         x[None, None, :, :], k[None, None, None, :], (1, 1), "VALID")[0, 0]
     x = jnp.pad(x, ((r, r), (0, 0)), mode="edge")

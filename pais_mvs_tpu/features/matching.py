@@ -6,8 +6,8 @@ matrices for every ordered camera pair from the projection matrices
 distance filter (:158-195), and pruning of weak pairs (< max/4 matches,
 :197-247).
 
-TPU-first: each pair's L2 distance table is ONE [K, K] matmul of unit
-descriptors (MXU), mutual-nearest + Lowe ratio + epipolar gate are
+Batched: each pair's L2 distance table is ONE [K, K] matmul of unit
+descriptors, mutual-nearest + Lowe ratio + epipolar gate are
 elementwise reductions over it.
 """
 
@@ -46,13 +46,12 @@ class PairMatches(NamedTuple):
 def match_pair(desc1, desc2, xy1, xy2, mask1, mask2, F,
                max_epipolar_dist=3.0, ratio=0.85):
     """Match two descriptor sets. desc*: [K, D] unit vectors."""
-    sim = desc1 @ desc2.T                                   # [K, K] MXU
+    sim = desc1 @ desc2.T                                   # [K, K]
     sim = jnp.where(mask1[:, None] & mask2[None, :], sim, -2.0)
     # L2^2 = 2 - 2 sim for unit vectors; nearest = max sim
     best2 = jnp.argmax(sim, axis=1)                         # [K]
-    # two iterative argmax extractions instead of lax.top_k: top_k lowers
-    # to a row sort, milliseconds on small rows here (same pattern as
-    # ops/pso.py::_local_best; CLAUDE.md platform rules)
+    # two iterative argmax extractions instead of lax.top_k, which lowers
+    # to a row sort (same pattern as ops/pso.py::_local_best)
     s1 = jnp.take_along_axis(sim, best2[:, None], axis=1)[:, 0]
     sim2 = sim.at[jnp.arange(sim.shape[0]), best2].set(-2.0)
     s2 = jnp.max(sim2, axis=1)

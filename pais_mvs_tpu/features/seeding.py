@@ -106,7 +106,7 @@ def generate_seed_patches(params: Sequence[CameraParams],
             # every present octave contributes exactly k_per_octave rows
             # (detect_keypoints appends full fixed-size masked batches,
             # never ragged ones), so the describe batch shape is static —
-            # one XLA compile total, not one per novel count (ADVICE r1)
+            # one XLA compile total, not one per novel count
             assert len(sel) == k_per_octave, (o, len(sel))
             d = dsc.describe_octave(g, kp.xy_oct[sel], kp.sigma_oct[sel],
                                     kp.level[sel])

@@ -4,7 +4,7 @@ The reference's central data structure is a heap-allocated ``Patch`` object
 per point, stored in a ``map<int, Patch>`` (TMVS/mvs/abstractpatch.h:20-53).
 Here a batch of patches is one pytree of ``[B, ...]`` arrays with a validity
 mask — every lifecycle op is a masked tensor program, so thousands of
-patches refine in lockstep on the MXU/VPU.
+patches refine in lockstep on the device.
 
 Per-patch visible cameras are a dense boolean mask over the (small) camera
 axis instead of a ragged index list.
@@ -16,10 +16,11 @@ from typing import Any
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+
+from pais_mvs_tpu.models import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class PatchBatch:
     """A batch of B patches against a C-camera rig."""
 
@@ -59,8 +60,7 @@ class PatchBatch:
 def empty_batch(capacity: int, num_cams: int) -> PatchBatch:
     # HOST numpy arrays: batches are assembled at ragged sizes on the host
     # and only become device arrays at the fixed-shape refine boundary —
-    # jnp ops here would trigger one (slow, remote on this platform) XLA
-    # compile per novel shape
+    # jnp ops here would trigger one XLA compile per novel shape
     z = lambda *s: np.zeros(s, dtype=np.float32)
     return PatchBatch(
         center=z(capacity, 3), normal_sph=z(capacity, 2),

@@ -1,6 +1,6 @@
-// Native host runtime for the TPU MVS engine.
+// Native host runtime for the MVS engine.
 //
-// The device (JAX/Pallas) owns all dense math; this library owns the
+// The device (JAX/XLA) owns all dense math; this library owns the
 // irregular host-side bookkeeping that Python loops handle too slowly at
 // scale — the per-camera cell grids and the wavefront-expansion candidate
 // generation (reference: TMVS/mvs/cellmap.{h,cpp} and the host half of

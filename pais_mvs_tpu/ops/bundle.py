@@ -3,7 +3,8 @@
 NEW SCOPE vs the reference: TMVS takes VisualSFM poses as fixed ground truth
 (TMVS/io/fileloader.cpp:251-325 just parses them; there is no pose
 optimization anywhere in the tree). The driver's north star adds a
-pose-refinement BA stage, so this module implements it TPU-first:
+pose-refinement BA stage, so this module implements it as batched device
+math:
 
 * residuals r_{m,c} = project(R_c (X_m - C_c)) - obs_{m,c} over n-view
   tracks (the same tracks the seeder produces);
@@ -12,8 +13,8 @@ pose-refinement BA stage, so this module implements it TPU-first:
   back-substitution for the points;
 * every per-track quantity (H_pp, W, b) is an independent reduction over
   tracks, so the track axis shards over the device mesh and the reduced
-  [6C+, 6C] camera system assembles with one psum — ICI does the Schur
-  reduction, the tiny dense solve is replicated.
+  [6C+, 6C] camera system assembles with one psum — a collective does the
+  Schur reduction, the tiny dense solve is replicated.
 
 Camera deltas are parameterized as (axis-angle w, center delta dc):
 R <- exp([w]x) R,  C <- C + dc. Jacobians come from one vmapped closed-form
@@ -276,9 +277,9 @@ def bundle_adjust_sharded(problem: BaProblem, mesh: Mesh, axis: str,
     """Track-sharded LM bundle adjustment over a device mesh.
 
     The track axis of (points, obs, mask) shards over ``axis``; each device
-    assembles its local Schur pieces and one ``psum`` over ICI produces the
+    assembles its local Schur pieces and one ``psum`` produces the
     replicated reduced camera system (the distributed Schur-complement
-    reduction of BASELINE.json config 5). Point back-substitution stays
+    reduction). Point back-substitution stays
     local to each shard.
     """
     C = problem.R.shape[0]

@@ -17,10 +17,13 @@ Conventions
 from __future__ import annotations
 
 import jax.numpy as jnp
+import numpy as np
 
 # Large sentinel standing in for the reference's DBL_MAX rejections; kept
-# finite so downstream min/exp arithmetic stays NaN-free in f32.
-BIG = jnp.float32(1e30)
+# finite so downstream min/exp arithmetic stays NaN-free in f32. A NumPy
+# scalar, so that importing the package does not start a JAX backend
+# (multi-process runs must call jax.distributed.initialize first).
+BIG = np.float32(1e30)
 
 
 # ---------------------------------------------------------------------------

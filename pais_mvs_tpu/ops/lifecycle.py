@@ -25,42 +25,6 @@ from pais_mvs_tpu.ops import geometry as geom
 from pais_mvs_tpu.ops.pso import gln_pso
 
 
-_resolve_backend = F.resolve_backend
-
-
-_RADIUS_WARNED = set()
-
-
-def _fitness_fn(cfg: MvsConfig, view_axis: str | None = None):
-    """Select the photoconsistency backend (decided at trace time).
-
-    ``view_axis``: inside a shard_map whose in_specs put the pyramid
-    atlases on that mesh axis, returns the view-sharded psum-composed
-    fitness (ops/view_fitness.py) instead of the flat backends."""
-    if view_axis is not None:
-        from pais_mvs_tpu.ops import view_fitness as VF
-        return functools.partial(VF.patch_fitness_view, axis=view_axis)
-    backend = _resolve_backend(cfg)
-    if backend == "pallas":
-        from pais_mvs_tpu.ops.pallas_fitness import STRETCH
-        # the Pallas kernel's 128-wide block slice must cover the full
-        # stretched warp span; beyond patchRadius ~23 hypotheses the
-        # reference scores finitely would be silently BIG-fated — fall
-        # back to the jnp path (slow but exact) rather than degrade
-        if STRETCH * (2 * cfg.patch_radius + 1) > 128:
-            if cfg.patch_radius not in _RADIUS_WARNED:
-                _RADIUS_WARNED.add(cfg.patch_radius)
-                print(f"pais_mvs_tpu: patchRadius {cfg.patch_radius} "
-                      f"exceeds the Pallas kernel's slice coverage "
-                      f"({STRETCH:.1f}x window > 128 px); using the exact "
-                      f"jnp fitness path (slower)", flush=True)
-            return F.patch_fitness
-        from pais_mvs_tpu.ops.pallas_fitness import patch_fitness_pallas
-        return functools.partial(patch_fitness_pallas,
-                                 precise=cfg.pallas_precise)
-    return F.patch_fitness
-
-
 # ---------------------------------------------------------------------------
 # per-step primitives
 # ---------------------------------------------------------------------------
@@ -199,24 +163,17 @@ def remove_invisible_cameras(scene: Scene, cfg: MvsConfig,
 
     Returns (new_cam_mask, correlation, drop). ``correlation`` is computed
     over the PRE-removal camera set, as in the reference. With
-    ``view_axis`` the warped vectors come from the view-sharded sampler +
+    ``view_axis`` the warped vectors come from the view-sharded warp +
     all_gather (ops/view_fitness.py); everything downstream is rig-only
     (replicated) math.
     """
     rig = scene.rig
     B = center.shape[0]
     C = rig.num_cameras
-    from pais_mvs_tpu.ops.pallas_fitness import STRETCH
     if view_axis is not None:
         from pais_mvs_tpu.ops import view_fitness as VF
         vecs, corr_table, correlation, ok = VF.warped_vectors_view(
             scene, cfg, center, normal, ref_cam, cam_mask, lod, view_axis)
-    elif (_resolve_backend(cfg) == "pallas"
-            and STRETCH * (2 * cfg.patch_radius + 1) <= 128):
-        from pais_mvs_tpu.ops.pallas_fitness import warped_patch_vectors_pallas
-        vecs, corr_table, correlation, ok = warped_patch_vectors_pallas(
-            scene, cfg, center, normal, ref_cam, cam_mask, lod,
-            precise=cfg.pallas_precise)
     else:
         vecs, corr_table, correlation, ok = F.warped_patch_vectors(
             scene, cfg, center, normal, ref_cam, cam_mask, lod)
@@ -408,6 +365,11 @@ def refine_batch(scene: Scene, cfg: MvsConfig, pb: PatchBatch, key,
     ray = pb.ray
     depth_range = pb.depth_range
 
+    fitness_fn = F.patch_fitness
+    if view_axis is not None:
+        from pais_mvs_tpu.ops import view_fitness as VF
+        fitness_fn = functools.partial(VF.patch_fitness_view, axis=view_axis)
+
     for rnd in range(rounds):
         normal = geom.spherical_to_normal(normal_sph)
         ref_cam = set_reference_camera(scene, normal, cam_mask)
@@ -431,8 +393,8 @@ def refine_batch(scene: Scene, cfg: MvsConfig, pb: PatchBatch, key,
         hi = jnp.stack([hi_t, normal_sph[:, 1] + span_p, depth_range[:, 1]], -1)
         init = jnp.stack([normal_sph[:, 0], normal_sph[:, 1], depth], -1)
 
-        fit_fn = lambda pos, act: _fitness_fn(cfg, view_axis)(
-            scene, cfg, ref_cam, cam_mask, lod, ray, pos, active=act)
+        fit_fn = lambda pos: fitness_fn(
+            scene, cfg, ref_cam, cam_mask, lod, ray, pos)
         res = gln_pso(fit_fn, lo.astype(jnp.float32), hi.astype(jnp.float32),
                       init.astype(jnp.float32),
                       jax.random.fold_in(key, rnd),

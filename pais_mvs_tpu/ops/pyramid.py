@@ -11,7 +11,7 @@ Reproduces the reference camera's image preprocessing
 
 The per-camera pyramids are packed into one padded device array
 ``[num_cams, num_levels, Hmax, Wmax]`` so a single gather serves every
-(patch, view, level) access on the TPU. Padding is zero, which doubles as
+(patch, view, level) access on the device. Padding is zero, which doubles as
 the reference's intensity-0 background convention.
 """
 
@@ -154,8 +154,7 @@ def atlas_offsets(per_cam_dims, num_levels):
     """Row offsets of the vertical mip-atlas bands.
 
     Every level occupies a horizontal band of the atlas (band height = max
-    over cameras of that level's height, 8-row aligned so Pallas DMA slabs
-    stay tile-aligned). Memory is sum(h_l) x W0 instead of the old
+    over cameras of that level's height, 8-row aligned). Memory is sum(h_l) x W0 instead of the old
     L x H0 x W0 stack — ~2x less at lodRatio 0.8.
 
     Returns (yoff [L+1] int32 — band starts, last entry = total height,

@@ -4,11 +4,12 @@ camera-block shard of the pyramids, composed with collectives over a mesh
 
 This is the memory-scaling half of the SPMD design (SURVEY.md §5.8): the
 patch axis shards swarms, the VIEW axis shards the per-camera mip-atlases —
-at 4K x 8 cams the replicated atlases cost 3.0 GiB/device and scale
-linearly in camera count (BASELINE.md), so pod-scale rigs need the
-pyramids split. Every function here runs INSIDE a ``shard_map`` whose
-in_specs place ``scene.pyramids.{images,edges,var,rgb}`` on the view axis
-(camera axis 0) and replicate the small leaves (rig, dims, yoff).
+at 4096x3072 x 8 cams the replicated atlases (bf16 images, edges and
+variance plus uint8 color) take about 3 GiB per device and grow linearly
+with the camera count, so large rigs need the pyramids split. Every
+function here runs INSIDE a ``shard_map`` whose in_specs place
+``scene.pyramids.{images,edges,var,rgb}`` on the view axis (camera axis 0)
+and replicate the small leaves (rig, dims, yoff).
 
 Cross-view composition facts (reference semantics being composed,
 TMVS/mvs/patch.cpp:914-1047: every cross-camera term is a sum or mean):
@@ -20,26 +21,8 @@ TMVS/mvs/patch.cpp:914-1047: every cross-camera term is a sum or mean):
     variance, patch color) live on the shard owning ``ref_cam`` — a
     one-hot ownership mask + psum replicates them;
   * the NCC correlation table is pairwise across ALL cameras, so the
-    locally-warped window vectors are ``all_gather``'d (ICI ring) before
-    the (tiny) [C, C] table math.
-
-Two sampling backends back the same contract, selected like the flat path
-(ops.fitness.resolve_backend): the jnp gather mirror (CPU tests — the
-semantic reference) and the Pallas box-sampler kernel
-(ops.pallas_fitness._run_sampler_raw) on accelerators. The Pallas path is
-two-stage here (samples to HBM, reduction in XLA) rather than the flat
-path's fused kernel: the fusion exists to kill the [B, C, P, W2] HBM
-tensor, but under view sharding that tensor is the psum payload's source
-and is already divided by the view-axis size; its HBM traffic is ~1% of
-bandwidth at the bench shape (BASELINE.md roofline), so two-stage is the
-right trade against doubling the sampling FLOPs with a re-sampling pass.
-
-One documented deviation of the Pallas path: the reference-window
-foreground/edge rows are sampled at ``round(center) + offset`` instead of
-the jnp reference's per-pixel ``round(center + offset)`` — identical
-except when the projected center lands EXACTLY on a .5 pixel boundary in
-f32 (round-half-even then differs by one pixel). The flat fused kernel
-rounds per-pixel; the parity tests gate validity agreement accordingly.
+    locally-warped window vectors are ``all_gather``'d before the (tiny)
+    [C, C] table math.
 """
 
 from __future__ import annotations
@@ -100,8 +83,7 @@ def fitness_view_jnp(rig: CameraRig, images_loc, edges_loc, dims_glob, yoff,
                      ray, pos, axis: str):
     """Per-shard jnp gather fitness over the local camera block,
     psum-composed over the view axis. Mirrors ops.fitness.patch_fitness
-    (same reference semantics, TMVS/mvs/patch.cpp:914-1047); the semantic
-    reference for ``fitness_view_pallas`` below."""
+    (same reference semantics, TMVS/mvs/patch.cpp:914-1047)."""
     B, Pn, _ = pos.shape
 
     normal = geom.spherical_to_normal(pos[..., :2])
@@ -195,171 +177,15 @@ def fitness_view_jnp(rig: CameraRig, images_loc, edges_loc, dims_glob, yoff,
     return jnp.where(cand_ok & (sum_w > 0), fit, BIG)
 
 
-def _ref_window_rows(atlas_loc, dims_loc, yoff, cfg, pt, lod, ref_cam,
-                     offset, c_local, axis, precise, interpret):
-    """[B, W2] reference-camera window values sampled on the owning shard
-    via the Pallas box sampler (identity homography at the ROUNDED window
-    center: bilinear at integer coordinates == the nearest lookup the
-    reference uses, patch.cpp:986; see the module docstring for the
-    half-pixel tie caveat), psum-replicated over the view axis."""
-    from pais_mvs_tpu.ops.pallas_fitness import _run_sampler_raw, INVALID
-    B = pt.shape[0]
-    r = cfg.patch_radius
-    own = (ref_cam >= offset) & (ref_cam < offset + c_local)   # [B]
-    ref_loc = jnp.clip(ref_cam - offset, 0, c_local - 1)
-    # one-hot act: only the owning (patch, ref-cam) cell samples
-    act = own[:, None] & (jnp.arange(c_local)[None, :] == ref_loc[:, None])
-    H_id = jnp.broadcast_to(jnp.eye(3, dtype=jnp.float32),
-                            (B, 1, c_local, 3, 3))
-    vals = _run_sampler_raw(atlas_loc, dims_loc, yoff, cfg, H_id,
-                            jnp.round(pt), lod, (0.0, 1.0), r + 4, precise,
-                            interpret, act=act,
-                            cover_y=r + 4)                     # [B, c, 1, W2]
-    v = jnp.take_along_axis(vals[:, :, 0, :], ref_loc[:, None, None],
-                            axis=1)[:, 0, :]                   # [B, W2]
-    v = jnp.where(own[:, None] & (v > INVALID / 2), v, 0.0)
-    return jax.lax.psum(v, axis)
-
-
-def fitness_view_pallas(rig: CameraRig, images_loc, edges_loc, dims_glob,
-                        yoff, cfg: MvsConfig, c_local: int, ref_cam,
-                        cam_mask, lod, ray, pos, axis: str, active=None,
-                        precise: bool = False, interpret: bool = False):
-    """Pallas-sampled view-sharded fitness: the local camera block's warped
-    windows come from the box-sampler kernel (one HBM box DMA per (patch,
-    camera) cell, MXU bilinear — ops/pallas_fitness.py), the cross-camera
-    mean/SAD/validity/weight reduction composes with psum exactly like
-    ``fitness_view_jnp`` (whose epilogue this mirrors term for term)."""
-    from pais_mvs_tpu.ops.pallas_fitness import (_run_sampler_raw, INVALID,
-                                                 STRETCH)
-    B, Pn, _ = pos.shape
-    r = cfg.patch_radius
-    cover = int((STRETCH + 0.4) * r) + 8
-    cover_y = int(1.6 * r) + 10
-
-    # depth-sort particles so kernel blocks share box slices (the warped
-    # window center is the candidate center's projection — depth-only);
-    # unsorted before returning, invisible to the PSO
-    d = pos[..., 2]
-    iot = jnp.arange(Pn)
-    gt = ((d[:, :, None] > d[:, None, :]) |
-          ((d[:, :, None] == d[:, None, :]) &
-           (iot[None, :, None] > iot[None, None, :])))
-    rank = jnp.sum(gt, axis=-1).astype(jnp.int32)
-    pos = jnp.zeros_like(pos).at[jnp.arange(B)[:, None], rank].set(pos)
-
-    normal = geom.spherical_to_normal(pos[..., :2])
-    ref_center = rig.center[ref_cam]
-    center = ray[:, None, :] * pos[..., 2:3] + ref_center[:, None, :]
-    facing_bad = jnp.einsum("bpk,bk->bp", normal, rig.optical[ref_cam]) > 0
-    lod_scale = jnp.power(jnp.float32(cfg.lod_ratio), lod.astype(jnp.float32))
-
-    ref_cam_bp = jnp.broadcast_to(ref_cam[:, None], (B, Pn))
-    ls_bp = jnp.broadcast_to(lod_scale[:, None], (B, Pn))
-    H, hok, offset, dims_loc = _local_homographies(
-        rig, dims_glob, c_local, axis, center, normal, ref_cam_bp,
-        ls_bp)                                                # [B,P,c,3,3]
-    cam_mask_loc = jax.lax.dynamic_slice_in_dim(cam_mask, offset, c_local, 1)
-
-    # depth-invariant reference-window center (LOD coords)
-    def _proj(Xb, c, s):
-        return geom.project(Xb, rig.R[c], rig.T[c], rig.focal[c],
-                            rig.principal[c], s)[0]
-    pt = jax.vmap(_proj)(center[:, 0], ref_cam, lod_scale)    # [B, 2]
-
-    ref_dims = dims_glob[ref_cam, lod].astype(jnp.float32)
-    in_ref = ((pt[:, 0] - r >= 2) & (pt[:, 0] + r < ref_dims[:, 1] - 3) &
-              (pt[:, 1] - r >= 2) & (pt[:, 1] + r < ref_dims[:, 0] - 3))
-
-    # global homography validity (the flat path's pvalid term)
-    hbad = jax.lax.psum(
-        jnp.sum((~hok & cam_mask_loc[:, None, :]).astype(jnp.int32), -1),
-        axis)                                                  # [B, P]
-    pvalid = ~facing_bad & in_ref[:, None] & (hbad == 0)
-    act = cam_mask_loc if active is None else \
-        (active[:, None] & cam_mask_loc)
-
-    # warped samples for the local camera block: [B, c, P, W2]
-    vals = _run_sampler_raw(images_loc, dims_loc, yoff, cfg, H, pt, lod,
-                            (2.0, 3.0), cover, precise, interpret,
-                            act=act, cover_y=cover_y, pvalid=pvalid)
-    vals = jnp.transpose(vals, (0, 2, 3, 1))                   # [B,P,W2,c]
-    m = cam_mask_loc[:, None, None, :]
-    vok = (vals > INVALID / 2) & m
-    vals = jnp.where(vok, vals, 0.0)                           # garbage-safe
-
-    # reference foreground / edge windows (owning shard, rounded coords)
-    fg_row = _ref_window_rows(images_loc, dims_loc, yoff, cfg, pt, lod,
-                              ref_cam, offset, c_local, axis, precise,
-                              interpret) != 0                  # [B, W2]
-    fg = fg_row[:, None, :]
-
-    cam_num = jnp.sum(cam_mask, axis=-1).astype(vals.dtype)
-    cn = cam_num[:, None, None]
-    sum_v = jax.lax.psum(jnp.sum(vals, axis=-1), axis)
-    mean = sum_v / cn
-    sad = jax.lax.psum(
-        jnp.sum(jnp.where(vok, jnp.abs(vals - mean[..., None]), 0.0),
-                axis=-1), axis) / cn
-
-    bad = jax.lax.psum(jnp.sum((~vok & m).astype(jnp.int32), axis=-1), axis)
-    pix_ok = bad == 0
-    cand_ok = jnp.all(pix_ok | ~fg, axis=-1) & pvalid
-
-    weight = jnp.ones_like(sad)
-    if cfg.adaptive_distance_enable:
-        weight = weight * jnp.asarray(F.dist_weight_table(cfg))[None, None, :]
-    if cfg.adaptive_difference_enable:
-        weight = weight * jnp.exp(-sad * sad / jnp.float32(cfg.diff_weighting))
-    if cfg.adaptive_gradient_enable:
-        edge = _ref_window_rows(edges_loc, dims_loc, yoff, cfg, pt, lod,
-                                ref_cam, offset, c_local, axis, precise,
-                                interpret)[:, None, :]
-        safe_edge = jnp.maximum(edge * jnp.float32(cfg.gradient_weighting),
-                                1e-20)
-        weight = weight * jnp.exp(-1.0 / safe_edge)
-
-    wfg = weight * fg.astype(weight.dtype)
-    sum_w = jnp.sum(wfg, axis=-1)
-    fit = jnp.sum(wfg * sad, axis=-1) / jnp.where(sum_w > 0, sum_w, 1.0)
-    fit = jnp.where(cand_ok & (sum_w > 0), fit, BIG)
-    if active is not None:
-        fit = jnp.where(active[:, None], fit, BIG)
-    return jnp.take_along_axis(fit, rank, axis=1)              # unsort
-
-
-_RADIUS_WARNED = set()
-
-
 def patch_fitness_view(scene: Scene, cfg: MvsConfig, ref_cam, cam_mask, lod,
-                       ray, pos, axis: str, active=None,
-                       interpret: bool = False):
-    """View-sharded drop-in for the flat fitness backends: ``scene`` holds
-    a LOCAL camera block of the big atlases (in_specs put them on ``axis``)
-    with rig/dims/yoff replicated. Backend selection matches the flat path
-    (resolve_backend + the Pallas radius ceiling)."""
-    from pais_mvs_tpu.ops.pallas_fitness import STRETCH
+                       ray, pos, axis: str):
+    """View-sharded drop-in for ``ops.fitness.patch_fitness``: ``scene``
+    holds a LOCAL camera block of the big atlases (in_specs put them on
+    ``axis``) with rig/dims/yoff replicated."""
     pyrs = scene.pyramids
-    c_local = pyrs.images.shape[0]
-    if F.resolve_backend(cfg) == "pallas":
-        if STRETCH * (2 * cfg.patch_radius + 1) <= 128:
-            return fitness_view_pallas(
-                scene.rig, pyrs.images, pyrs.edges, pyrs.dims, pyrs.yoff,
-                cfg, c_local, ref_cam, cam_mask, lod, ray, pos, axis,
-                active=active, precise=cfg.pallas_precise,
-                interpret=interpret)
-        # same loud fallback as the flat path (lifecycle._fitness_fn):
-        # the gather mirror inside shard_map on TPU is catastrophically
-        # slower, so a silent downgrade would read as a perf regression
-        if cfg.patch_radius not in _RADIUS_WARNED:
-            _RADIUS_WARNED.add(cfg.patch_radius)
-            print(f"pais_mvs_tpu: patchRadius {cfg.patch_radius} exceeds "
-                  f"the Pallas kernel's slice coverage; the view-sharded "
-                  f"path is using the exact jnp fitness (slower)",
-                  flush=True)
     return fitness_view_jnp(
         scene.rig, pyrs.images, pyrs.edges, pyrs.dims, pyrs.yoff, cfg,
-        c_local, ref_cam, cam_mask, lod, ray, pos, axis)
+        pyrs.images.shape[0], ref_cam, cam_mask, lod, ray, pos, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -367,19 +193,15 @@ def patch_fitness_view(scene: Scene, cfg: MvsConfig, ref_cam, cam_mask, lod,
 # ---------------------------------------------------------------------------
 
 def warped_vectors_view(scene: Scene, cfg: MvsConfig, center, normal,
-                        ref_cam, cam_mask, lod, axis: str,
-                        interpret: bool = False):
+                        ref_cam, cam_mask, lod, axis: str):
     """View-sharded ops.fitness.warped_patch_vectors (patch.cpp:221-267,
     332-386): each shard warps+samples its camera block ([B, c, W2]), the
     blocks are all_gather'd over the view axis (the pairwise NCC table
     needs every pair), and the table math runs replicated (it is [C, C]
     tiny). Same (vecs, corr, correlation, ok) contract."""
-    from pais_mvs_tpu.ops.pallas_fitness import (_run_sampler_raw, INVALID,
-                                                 STRETCH)
     rig, pyrs = scene.rig, scene.pyramids
     B = center.shape[0]
     c_local = pyrs.images.shape[0]
-    r = cfg.patch_radius
     lod_scale = jnp.power(jnp.float32(cfg.lod_ratio), lod.astype(jnp.float32))
     H, hok, offset, dims_loc = _local_homographies(
         rig, pyrs.dims, c_local, axis, center, normal, ref_cam,
@@ -391,45 +213,31 @@ def warped_vectors_view(scene: Scene, cfg: MvsConfig, center, normal,
                             rig.principal[c], s)[0]
     pt = jax.vmap(_proj)(center, ref_cam, lod_scale)           # [B, 2]
 
-    use_pallas = (F.resolve_backend(cfg) == "pallas"
-                  and STRETCH * (2 * r + 1) <= 128)
-    if use_pallas:
-        cover = int((STRETCH + 0.4) * r) + 8
-        cover_y = int(1.6 * r) + 10
-        vals = _run_sampler_raw(pyrs.images, dims_loc, pyrs.yoff, cfg,
-                                H[:, None], pt, lod, (0.0, 1.0), cover,
-                                cfg.pallas_precise, interpret,
-                                act=cam_mask_loc,
-                                cover_y=cover_y)[:, :, 0, :]   # [B, c, W2]
-        vok = vals > INVALID / 2                               # box+bounds
-        vecs_loc = jnp.where(vok, vals, 0.0)                   # [B, c, W2]
-        vok_bwc = jnp.swapaxes(vok, 1, 2)                      # [B, W2, c]
-    else:
-        offs = jnp.asarray(F.window_offsets(r))
-        W2 = offs.shape[0]
-        win = pt[:, None, :] + offs[None, :, :]                # [B, W2, 2]
-        x = win[..., 0][..., None]
-        y = win[..., 1][..., None]
-        Hc = H[:, None, :, :, :]
-        w = Hc[..., 2, 0] * x + Hc[..., 2, 1] * y + Hc[..., 2, 2]
-        sw = jnp.where(w == 0, 1.0, w)
-        u = (Hc[..., 0, 0] * x + Hc[..., 0, 1] * y + Hc[..., 0, 2]) / sw
-        v = (Hc[..., 1, 0] * x + Hc[..., 1, 1] * y + Hc[..., 1, 2]) / sw
-        uv = jnp.stack([u, v], axis=-1)                        # [B, W2, c, 2]
-        cam_idx = jnp.broadcast_to(jnp.arange(c_local, dtype=jnp.int32),
-                                   (B, W2, c_local))
-        lod_b = jnp.broadcast_to(lod[:, None, None], (B, W2, c_local))
-        vals, vok_bwc = F.bilinear_gather(pyrs.images, pyrs.yoff, cam_idx,
-                                          lod_b, uv, dims_loc, 0.0, 1.0)
-        vok_bwc = vok_bwc & (w != 0)
-        vecs_loc = jnp.swapaxes(vals, 1, 2)                    # [B, c, W2]
+    offs = jnp.asarray(F.window_offsets(cfg.patch_radius))
+    win = pt[:, None, :] + offs[None, :, :]                    # [B, W2, 2]
+    x = win[..., 0][..., None]
+    y = win[..., 1][..., None]
+    Hc = H[:, None, :, :, :]
+    w = Hc[..., 2, 0] * x + Hc[..., 2, 1] * y + Hc[..., 2, 2]
+    sw = jnp.where(w == 0, 1.0, w)
+    u = (Hc[..., 0, 0] * x + Hc[..., 0, 1] * y + Hc[..., 0, 2]) / sw
+    v = (Hc[..., 1, 0] * x + Hc[..., 1, 1] * y + Hc[..., 1, 2]) / sw
+    uv = jnp.stack([u, v], axis=-1)                            # [B, W2, c, 2]
+    W2 = offs.shape[0]
+    cam_idx = jnp.broadcast_to(jnp.arange(c_local, dtype=jnp.int32),
+                               (B, W2, c_local))
+    lod_b = jnp.broadcast_to(lod[:, None, None], (B, W2, c_local))
+    vals, vok_bwc = F.bilinear_gather(pyrs.images, pyrs.yoff, cam_idx,
+                                      lod_b, uv, dims_loc, 0.0, 1.0)
+    vok_bwc = vok_bwc & (w != 0)
+    vecs_loc = jnp.swapaxes(vals, 1, 2)                        # [B, c, W2]
 
     m = cam_mask_loc[:, None, :]
     ok_loc = jnp.all(jnp.all(vok_bwc | ~m, axis=1)
                      & (hok | ~cam_mask_loc), axis=-1)
     ok = jax.lax.psum((~ok_loc).astype(jnp.int32), axis) == 0
 
-    # masked cams' rows may hold garbage (skipped kernel cells) — zero them
+    # masked cams' rows are not part of the table — zero them
     vecs_loc = jnp.where(cam_mask_loc[:, :, None], vecs_loc, 0.0)
     vecs = jax.lax.all_gather(vecs_loc, axis, axis=1, tiled=True)  # [B,C,W2]
     return F.ncc_from_vectors(vecs, cam_mask, ok)

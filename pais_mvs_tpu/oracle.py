@@ -2,7 +2,7 @@
 
 Two jobs:
   1. **Baseline measurement** — the reference publishes no numbers
-     (BASELINE.md), so the CPU figure to beat is measured here: a faithful
+     (SURVEY.md §6), so the CPU figure to beat is measured here: a faithful
      one-patch-at-a-time refine loop with TMVS semantics (one GLN-PSO swarm
      per patch, fitness vectorized over the particle set — the moral
      equivalent of the reference's OpenMP-over-particles C++,
@@ -10,7 +10,8 @@ Two jobs:
   2. **Semantic cross-check** — an independent implementation of the
      fitness kernel for parity tests against the JAX path.
 
-Deliberately NumPy-only: no jax imports, runs anywhere.
+Deliberately NumPy-only (plus one SciPy k-d tree for cloud agreement):
+no jax imports, runs anywhere.
 """
 
 from __future__ import annotations
@@ -73,6 +74,14 @@ def _dist_weight(cfg: MvsConfig) -> np.ndarray:
     g = np.exp(-(dx ** 2 + dy ** 2) / (2 * cfg.dist_weighting ** 2))
     g /= (2 * np.pi * cfg.dist_weighting ** 2)
     return (g / g.sum()).ravel()
+
+
+# Agreement of the device fitness (ops.fitness.patch_fitness) with
+# fitness_np on candidates both score finitely:
+#   |fit_device - fit_np| <= FITNESS_TOL * max(1, |fit_np|).
+# The device samples bf16 intensity/edge atlases in float32, this oracle
+# float64 pyramids; the bf16 edge weights dominate the difference.
+FITNESS_TOL = 1e-3
 
 
 def fitness_np(scene: NpScene, cfg: MvsConfig, ref_cam: int, cam_idx,
@@ -929,16 +938,14 @@ class OraclePipeline:
 def cloud_agreement(engine_pts: np.ndarray, oracle_pts: np.ndarray,
                     tol: float) -> dict:
     """% of engine patches within ``tol`` of the nearest oracle patch and
-    vice versa (the BASELINE.json cloud-parity metric)."""
+    vice versa (the cloud-parity metric)."""
+    from scipy.spatial import cKDTree
+
     def frac_within(a, b):
         if len(a) == 0 or len(b) == 0:
             return 0.0
-        dmin = np.empty(len(a))
-        chunk = max(1, int(2e7 / max(len(b), 1)))
-        for s in range(0, len(a), chunk):
-            d = np.linalg.norm(a[s:s + chunk, None, :] - b[None, :, :],
-                               axis=-1)
-            dmin[s:s + chunk] = d.min(axis=1)
+        dmin, _ = cKDTree(np.asarray(b, np.float64)).query(
+            np.asarray(a, np.float64), k=1)
         return float((dmin <= tol).mean())
     return {
         "engine_within_tol": frac_within(engine_pts, oracle_pts),

@@ -26,7 +26,7 @@ Routing: a candidate's owner is the shard holding its (camera, cell
 column) slab. Because multi-view candidates land anywhere in any camera's
 grid (a patch projects to very different pixels per view), the ring halo
 exchange of the simplified path cannot carry them — candidates are
-all_gather'ed (XLA lowers it to an ICI ring) and each shard filters the
+all_gather'ed and each shard filters the
 rows it owns. Payloads are a few KB per shard per round.
 
 The insert-time re-check is an EXACT mirror of the host's serial insert

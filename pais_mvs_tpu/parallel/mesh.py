@@ -4,8 +4,8 @@ The scaling model (SURVEY.md §5.8, §7): the patch batch is the data-parallel
 axis ("patch") — PSO swarms are embarrassingly parallel — and the camera
 axis ("view") shards the image pyramids, with psum-composed photoconsistency
 across view shards. The reference has no distributed story at all (OpenMP
-only, TMVS C11); this is new TPU-native design, scaled by XLA collectives
-over ICI.
+only, TMVS C11); this is new design, scaled by XLA collectives between
+devices.
 """
 
 from __future__ import annotations

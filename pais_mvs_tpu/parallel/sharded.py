@@ -10,48 +10,22 @@ every view shard).
 
 This is the multi-chip execution path of the hot kernel; the reference has
 no equivalent (its only parallelism is OpenMP within one swarm,
-TMVS/pso/psosolver.cpp:113-122). The per-shard fitness is backend-
-dispatched (ops/view_fitness.py): the Pallas box-sampler kernel on
-accelerators, the jnp gather mirror on CPU.
+TMVS/pso/psosolver.cpp:113-122). The per-shard fitness is
+ops/view_fitness.fitness_view_jnp.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
 
 import jax
-import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from pais_mvs_tpu.config import MvsConfig
 from pais_mvs_tpu.models.camera import CameraRig
-from pais_mvs_tpu.ops import fitness as F
-from pais_mvs_tpu.ops import geometry as geom
-from pais_mvs_tpu.ops.geometry import BIG
+from pais_mvs_tpu.ops import view_fitness as VF
 from pais_mvs_tpu.ops.pso import gln_pso, PsoResult
 from pais_mvs_tpu.parallel.mesh import PATCH_AXIS, VIEW_AXIS
-
-
-def _local_view_fitness(rig: CameraRig, images_loc, edges_loc, dims_glob,
-                        yoff, cfg: MvsConfig, c_local: int,
-                        ref_cam, cam_mask, lod, ray, pos):
-    """Per-shard fitness over the local camera block, psum-composed over
-    the view axis (reference semantics TMVS/mvs/patch.cpp:914-1047).
-    Backend-dispatched like the flat path: the Pallas box-sampler kernel on
-    accelerators, the jnp gather mirror on CPU — both live in
-    ops/view_fitness.py (this wrapper keeps the historical name)."""
-    from pais_mvs_tpu.ops import view_fitness as VF
-    from pais_mvs_tpu.ops.pallas_fitness import STRETCH
-    if F.resolve_backend(cfg) == "pallas" and \
-            STRETCH * (2 * cfg.patch_radius + 1) <= 128:
-        return VF.fitness_view_pallas(
-            rig, images_loc, edges_loc, dims_glob, yoff, cfg, c_local,
-            ref_cam, cam_mask, lod, ray, pos, VIEW_AXIS,
-            precise=cfg.pallas_precise)
-    return VF.fitness_view_jnp(
-        rig, images_loc, edges_loc, dims_glob, yoff, cfg, c_local,
-        ref_cam, cam_mask, lod, ray, pos, VIEW_AXIS)
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "mesh", "particle_num",
@@ -75,9 +49,9 @@ def sharded_pso_refine(rig: CameraRig, images, edges, dims_glob, yoff,
     def body(rig_r, images_loc, edges_loc, dims_g, yoff_r, ref_cam,
              cam_mask, lod, ray, lo, hi, init, key):
         pk = jax.random.fold_in(key, jax.lax.axis_index(PATCH_AXIS))
-        fit_fn = lambda pos, act: _local_view_fitness(
+        fit_fn = lambda pos: VF.fitness_view_jnp(
             rig_r, images_loc, edges_loc, dims_g, yoff_r, cfg, c_local,
-            ref_cam, cam_mask, lod, ray, pos)
+            ref_cam, cam_mask, lod, ray, pos, VIEW_AXIS)
         return gln_pso(fit_fn, lo, hi, init, pk,
                        particle_num=particle_num,
                        max_iteration=max_iteration)

@@ -29,8 +29,7 @@ def build_problem(view: bool = False):
     S = 4 if view else 8
     cfg = MvsConfig(patch_radius=4, max_lod=3, particle_num=6,
                     max_iteration=6, dist_weighting=4 / 3.0, cell_size=10,
-                    visible_correlation=0.7, min_cam_num=3,
-                    fitness_backend="jnp")
+                    visible_correlation=0.7, min_cam_num=3)
     sc = make_scene(num_cams=4, width=160, height=120, num_seeds=64, seed=5)
     scene = build_scene(sc.params, sc.images, cfg)
     C = 4

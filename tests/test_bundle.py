@@ -1,7 +1,7 @@
 """Bundle adjustment: recover perturbed poses/points on synthetic tracks.
 
 New scope vs the reference (TMVS has no BA; poses come fixed from
-VisualSFM) — demanded by BASELINE.json config 5.
+VisualSFM).
 """
 
 import numpy as np

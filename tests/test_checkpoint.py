@@ -66,8 +66,8 @@ def test_load_checkpoint_missing_returns_false(tmp_path, small):
 
 def test_corrupt_sidecar_leaves_arena_untouched(tmp_path, small):
     """A sidecar that OPENS but has a bad member must be rejected without
-    half-mutating the arena (ADVICE r1: every field materializes inside
-    the try before any arena write)."""
+    half-mutating the arena (every field materializes inside the try
+    before any arena write)."""
     cfg, sc = small
     rec = _fresh(cfg, sc)
     rec.refine_seeds()

@@ -102,3 +102,49 @@ def test_reconstruction_is_deterministic(disk_scene, monkeypatch, tmp_path):
     b = mvsbin.read_mvs(str(o2 / "exp.mvs"))
     np.testing.assert_array_equal(a.patches.centers, b.patches.centers)
     np.testing.assert_array_equal(a.patches.fitness, b.patches.fitness)
+
+
+_BLOCK_IMAGING = """
+import sys
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("flax", "PIL", "matplotlib"):
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, _Block())
+from pais_mvs_tpu import cli
+rc = cli.main(["-r", "scene.nvm"])
+assert not any(m.split(".")[0] in ("flax", "PIL", "matplotlib")
+               for m in sys.modules), "optional package imported"
+sys.exit(rc)
+"""
+
+
+def test_cli_runs_without_flax_pil_matplotlib(tmp_path):
+    """`-r` on a PPM scene runs in a fresh interpreter in which flax, PIL
+    and matplotlib cannot be imported (the packages a GPU host may lack)."""
+    import subprocess
+    import sys
+    from pais_mvs_tpu.io.images import write_pnm
+    sc = make_scene(num_cams=4, width=120, height=90, num_seeds=10, seed=3)
+    for p, img in zip(sc.params, sc.images):
+        p.file_name = p.file_name.rsplit(".", 1)[0] + ".ppm"
+        write_pnm(str(tmp_path / p.file_name), img)
+    ipts = sc.seed_img_points.copy()
+    ipts[..., 0] -= 60
+    ipts[..., 1] -= 45
+    save_nvm(str(tmp_path / "scene.nvm"), sc.params, sc.seed_centers,
+             np.full((len(sc.seed_centers), 3), 128.0),
+             sc.seed_cam_masks, ipts)
+    (tmp_path / "config.txt").write_text(
+        "patchRadius 3\nmaxLOD 2\nparticleNum 4\nmaxIteration 4\n"
+        "distWeighting 1.0\nseedRefineRounds 1\nminCamNum 3\n"
+        "cellSize 12\nwavefrontSize 32\nbatchSize 32\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=root)
+    r = subprocess.run([sys.executable, "-c", _BLOCK_IMAGING],
+                       cwd=tmp_path, env=env, capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+    f = mvsbin.read_mvs(str(tmp_path / "exp.mvs"))
+    assert len(f.patches.centers) > 0
+    assert np.median(sc.surface_distance(f.patches.centers)) < 0.02

@@ -80,7 +80,7 @@ def test_pipelined_expansion_matches_serial():
     frontier deferral, stale-grid candidate generation corrected by the
     insert-time re-check) must land a cloud agreeing with the serial-order
     loop at the synthetic scene's order-insensitive level (~0.97 host
-    self-agreement; cf. BASELINE.md round 2 cloud-parity methodology)."""
+    self-agreement)."""
     from pais_mvs_tpu.oracle import cloud_agreement
 
     sc = make_scene(num_cams=4, width=200, height=150, num_seeds=25, seed=3)

@@ -138,10 +138,9 @@ def test_region_ratio_anisotropic_scale():
 
 
 def test_package_defaults_full_precision_matmuls():
-    """Importing the package must pin true-f32 einsums: TPU's default
-    single-pass-bf16 f32 dot lowering cost 5x seed accuracy on real
-    imagery (BASELINE.md round 2). The Pallas kernels pin their own
-    precision, so this canary guards the geometry chain only."""
+    """Importing the package must pin true-f32 einsums: the GPU's default
+    TF32 lowering of f32 dots would degrade the geometry chain
+    (homographies, projections, NCC tables)."""
     import jax
     import pais_mvs_tpu  # noqa: F401  (import applies the default)
     assert jax.config.jax_default_matmul_precision == "highest"

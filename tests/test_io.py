@@ -108,3 +108,59 @@ def test_psr_round_trip(tmp_path):
     c2, n2 = read_psr(path)
     np.testing.assert_allclose(c2, c, rtol=1e-6)
     np.testing.assert_allclose(n2, n, rtol=1e-6)
+
+
+@pytest.mark.parametrize("shape,ext", [((7, 5), ".pgm"), ((7, 5, 3), ".ppm"),
+                                       ((7, 5, 3), ".npy")])
+def test_image_round_trip_without_pillow(tmp_path, shape, ext):
+    """PGM/PPM/.npy inputs decode with numpy alone, to uint8 RGB."""
+    from pais_mvs_tpu.io.images import read_image, write_pnm
+    img = np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8)
+    path = str(tmp_path / f"img{ext}")
+    if ext == ".npy":
+        np.save(path, img)
+    else:
+        write_pnm(path, img)
+    out = read_image(path)
+    assert out.dtype == np.uint8 and out.shape == (7, 5, 3)
+    want = img if img.ndim == 3 else np.repeat(img[..., None], 3, axis=2)
+    np.testing.assert_array_equal(out, want)
+
+
+def test_pnm_header_comments_and_whitespace(tmp_path):
+    from pais_mvs_tpu.io.images import read_pnm
+    img = np.arange(6, dtype=np.uint8).reshape(2, 3)
+    path = tmp_path / "c.pgm"
+    path.write_bytes(b"P5\n# a comment\n3  # width\n2\n255\n" + img.tobytes())
+    np.testing.assert_array_equal(read_pnm(str(path)), img)
+
+
+@pytest.mark.parametrize("header,body,msg", [
+    (b"P2\n3 2\n255\n", b"0 1 2 3 4 5", "binary P5/P6"),
+    (b"P5\n3 2\n65535\n", bytes(12), "8-bit"),
+    (b"P6\n3 2\n255\n", bytes(10), "truncated"),
+    (b"P5\n3 x\n255\n", bytes(6), "malformed"),
+])
+def test_pnm_rejects_bad_files(tmp_path, header, body, msg):
+    from pais_mvs_tpu.io.images import read_pnm
+    path = tmp_path / "bad.pnm"
+    path.write_bytes(header + body)
+    with pytest.raises(ValueError, match=msg):
+        read_pnm(str(path))
+
+
+def test_other_formats_name_the_missing_package(tmp_path, monkeypatch):
+    """Without Pillow, a PNG input fails with an error naming the format."""
+    import builtins
+    from pais_mvs_tpu.io.images import read_image
+    real_import = builtins.__import__
+
+    def no_pil(name, *a, **k):
+        if name == "PIL" or name.startswith("PIL."):
+            raise ImportError(name)
+        return real_import(name, *a, **k)
+
+    monkeypatch.setattr(builtins, "__import__", no_pil)
+    (tmp_path / "x.png").write_bytes(b"\x89PNG")
+    with pytest.raises(RuntimeError, match=r"'\.png' images needs Pillow"):
+        read_image(str(tmp_path / "x.png"))

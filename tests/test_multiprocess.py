@@ -14,6 +14,10 @@ import sys
 import numpy as np
 import pytest
 
+from pais_mvs_tpu.parallel.distributed import local_device_ids
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 
 def _free_port():
     s = socket.socket()
@@ -21,6 +25,42 @@ def _free_port():
     port = s.getsockname()[1]
     s.close()
     return port
+
+
+@pytest.mark.parametrize("coordinator, process_id, want", [
+    ("localhost:9876", 2, [2]),                # one-host launch
+    ("localhost:1234", 0, [0]),
+    ("127.0.0.1:9876", 1, [1]),
+    ("127.0.1.1:9876", 3, [3]),
+    ("[::1]:9876", 3, [3]),
+    ("host0:9876", 1, None),                   # may span hosts: all GPUs
+    ("10.0.0.5:9876", 3, None),
+    (socket.gethostname() + ":9876", 2, None),
+])
+def test_local_device_ids(coordinator, process_id, want):
+    """A process opens one GPU only when all processes are known to share
+    its host (loopback coordinator): on the coordinator's own host in a
+    multi-host launch, pinning card ``process_id`` would leave that host's
+    devices mismatched across processes (or name a card that does not
+    exist)."""
+    assert local_device_ids(coordinator, process_id) == want
+
+
+def test_package_import_starts_no_backend():
+    """``jax.distributed.initialize`` must precede the first backend use,
+    so importing the package (CLI and engine included) must not start one:
+    a module-level ``jnp`` value would."""
+    code = ("import jax._src.xla_bridge as xb\n"
+            "def spy(*a, **k):\n"
+            "    raise SystemExit('backend started at import')\n"
+            "xb.backends = spy\n"
+            "import pais_mvs_tpu.cli, pais_mvs_tpu.parallel.sharded, "
+            "pais_mvs_tpu.parallel.expansion, pais_mvs_tpu.ops.bundle\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", \
+        out.stdout + out.stderr
 
 
 def _stitch(prefix, nproc, names):
@@ -40,13 +80,13 @@ def test_two_process_matches_single_process(tmp_path):
     port = _free_port()
     prefix = str(tmp_path / "mp")
     env = dict(os.environ)
-    env["PYTHONPATH"] = "/root/repo" + os.pathsep + env.get("PYTHONPATH", "")
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env.pop("XLA_FLAGS", None)          # workers set their own device count
     env["JAX_PLATFORMS"] = "cpu"
     worker = os.path.join(os.path.dirname(__file__), "mp_worker.py")
     procs = [subprocess.Popen(
         [sys.executable, worker, str(pid), "2", str(port), prefix],
-        env=env, cwd="/root/repo",
+        env=env, cwd=REPO,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for pid in range(2)]
     outs = []
@@ -104,13 +144,13 @@ def test_two_process_view_sharded_matches_single_process(tmp_path):
     port = _free_port()
     prefix = str(tmp_path / "mpv")
     env = dict(os.environ)
-    env["PYTHONPATH"] = "/root/repo" + os.pathsep + env.get("PYTHONPATH", "")
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env.pop("XLA_FLAGS", None)
     env["JAX_PLATFORMS"] = "cpu"
     worker = os.path.join(os.path.dirname(__file__), "mp_worker.py")
     procs = [subprocess.Popen(
         [sys.executable, worker, str(pid), "2", str(port), prefix, "view"],
-        env=env, cwd="/root/repo",
+        env=env, cwd=REPO,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for pid in range(2)]
     outs = []

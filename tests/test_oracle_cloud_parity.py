@@ -2,7 +2,7 @@
 reference-semantics oracle (mvs.cpp:196-275, 792-898 re-implemented one
 patch at a time in NumPy; pais_mvs_tpu/oracle.py::OraclePipeline).
 
-This measures the BASELINE.json headline quality metric — "% patches
+This measures the headline quality metric — "% patches
 within depth tolerance of the reference cloud" — with the oracle standing
 in for a reference run (the reference binary is Windows-only and
 srand(time)-seeded; SURVEY.md §6).

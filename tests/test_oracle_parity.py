@@ -1,4 +1,4 @@
-"""Statistical parity: the batched TPU engine vs the sequential NumPy
+"""Statistical parity: the batched engine vs the sequential NumPy
 oracle of the reference pipeline (SURVEY §4 test strategy item 2 — the
 reference itself is irreproducible, srand(time), so parity is
 depth-tolerance agreement of the optimized patches, not bitwise)."""

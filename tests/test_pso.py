@@ -86,7 +86,7 @@ def test_exit_chunk_bit_identical():
     rng = np.random.default_rng(4)
     opt = jnp.asarray(rng.uniform(-1, 1, size=(B, D)), dtype=jnp.float32)
 
-    def fit(pos, act):
+    def fit(pos):
         return jnp.sum((pos - opt[:, None, :]) ** 2, axis=-1)
 
     for scale, key in ((2.0, 10), (1e-4, 11)):   # wide + instantly-frozen
@@ -111,7 +111,7 @@ def test_exit_chunk_under_jit_and_active0():
     B, D = 8, 2
     opt = jnp.zeros((B, D), jnp.float32)
 
-    def fit(pos, act):
+    def fit(pos):
         return jnp.sum((pos - opt[:, None, :]) ** 2, axis=-1)
 
     lo = jnp.full((B, D), -1.0, jnp.float32)

@@ -1,4 +1,4 @@
-"""Realistic-imagery validation (VERDICT r1 gap #2): real photographic
+"""Realistic-imagery validation: real photographic
 texture, occluding step geometry, per-view photometric jitter, and the
 reference's actual pawn camera rig ingested through the NVM loader."""
 
@@ -11,7 +11,7 @@ from pais_mvs_tpu.engine.reconstructor import Reconstructor
 
 
 def test_pawn_nvm_cameras_ingest(tmp_path):
-    """The five pawn camera rows from /root/reference/README.md:68-72 must
+    """The five pawn camera rows from the reference's README.md:68-72 must
     round-trip through the NVM text loader with focals, quaternions,
     centers AND the real radial distortion (~-0.2) intact."""
     from pais_mvs_tpu.io.nvm import load_nvm
@@ -137,7 +137,7 @@ def test_radial_distortion_correction():
     """Images rendered through the pawn cameras' REAL radial distortion
     (r ~ -0.2, up to ~25 px displacement at the corners): ignoring r must
     measurably bias the cloud, and apply_distortion must fix it
-    (VERDICT r1 item 10; reference model camera.cpp:148-155)."""
+    (reference model camera.cpp:148-155)."""
     sc = make_realistic_scene(num_seeds=120, seed=1, distort=True,
                               gain_jitter=0.0, bias_jitter=0.0)
     d_ignore = _recon_median(sc, apply_distortion=False)

@@ -1,9 +1,9 @@
-"""Closing the borderline-accept quality loop (VERDICT r4 weak #4 / next-
-step #3): round 4 measured the engine accepting more borderline realistic
-seeds than the serial oracle (median surface distance ~5x the mutual
-accepts') and DEFENDED them as "seeds the post-filters exist to prune" —
-this test actually runs the -f post-filter pipeline (mvs.cpp:279-525) over
-the realistic seed clouds and checks the defense holds:
+"""Closing the borderline-accept quality loop: an earlier build measured
+the engine accepting more borderline realistic seeds than the serial
+oracle (median surface distance ~5x the mutual accepts') and DEFENDED
+them as "seeds the post-filters exist to prune" — this test actually
+runs the -f post-filter pipeline (mvs.cpp:279-525) over the realistic
+seed clouds and checks the defense holds:
 
   (a) the engine-only borderline accepts are pruned at a materially higher
       rate than the mutually-accepted seeds;

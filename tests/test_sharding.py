@@ -84,13 +84,13 @@ def test_sharded_fitness_equals_single_device(setup):
     single = F.patch_fitness(scene, cfg, jnp.asarray(ref), cam_mask, lod,
                              jnp.asarray(rays), jnp.asarray(pos))
 
-    from pais_mvs_tpu.parallel.sharded import _local_view_fitness
+    from pais_mvs_tpu.ops.view_fitness import fitness_view_jnp
     from jax.sharding import PartitionSpec as Sp
     mesh = mesh_mod.make_mesh((2, 4))  # 4-way view sharding (1 cam each)
 
     def body(rig, img, edg, dims, yo, ref_c, cm, ld, ry, ps):
-        return _local_view_fitness(rig, img, edg, dims, yo, cfg, 1,
-                                   ref_c, cm, ld, ry, ps)
+        return fitness_view_jnp(rig, img, edg, dims, yo, cfg, 1,
+                                ref_c, cm, ld, ry, ps, "view")
     f = jax.shard_map(
         body, mesh=mesh,
         in_specs=(Sp(), Sp("view"), Sp("view"), Sp(), Sp(),

@@ -1,12 +1,11 @@
-"""2K-class distributed-expansion parity evidence (VERDICT r4 next-step
-#8): the SPMD expand path's realistic-photo parity had only been measured
+"""2K-class distributed-expansion parity evidence: the SPMD expand path's realistic-photo parity had only been measured
 on ~150-patch clouds at 640x480. This runs the SAME pawn-rig photo scene
 rendered at scale x (640x480) through ``expand_distributed`` on the
 virtual 8-device CPU mesh vs the host engine, and reports the same
 relative gates the CI test uses (test_expand_distributed_realistic_parity
 — the host's own order-sensitivity is the yardstick).
 
-Run: JAX_PLATFORMS=cpu PYTHONPATH=/root/repo python \
+Run: JAX_PLATFORMS=cpu PYTHONPATH=. python \
          tools/dist_realistic_2k.py [--scale 3] [--seeds 300]
 """
 
